@@ -1,8 +1,7 @@
 """Example 3: hash join and hash aggregate.
 
 The comparison path to sort-merge: bijective-hash ordering instead of key
-ordering (see ops/hash_join.py for why a literal hash table is an
-anti-pattern on TPU).
+ordering (see ops/hash_join.py).
 
 Run: python examples/03_hash_join_aggregate.py [--simulator N]
 """

@@ -1,8 +1,8 @@
-"""TPU-native vectorized query-execution engine.
+"""Vectorized query-execution engine on JAX/XLA, run on NVIDIA GPUs.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the UPMEM PIM
-reference `5eoyeon/pim-sort-merge-join` (filter -> sort -> merge-join relational
-pipeline, reference layout at /root/reference/sort-merge-join/):
+A from-scratch JAX/XLA re-design of the capabilities of the UPMEM PIM
+reference `5eoyeon/pim-sort-merge-join` (filter -> sort -> merge-join
+relational pipeline):
 
 - CSV-ingested columnar tables on device (`columnar/`)
 - vectorized relational operators: selection, sort, sorted 1:1 merge-join,

@@ -5,12 +5,9 @@ arrays (`T[row][col]`, loaded by `load_csv`, app.c:59-92) with a
 fixed-capacity device buffer of shape ``[capacity, ncol]`` plus a traced
 ``num_rows`` scalar.
 
-Physical layout note: the buffer is row-major ``[capacity, ncol]`` -- rows on
-the TPU sublane (major) axis -- because the engine's dominant memory pattern
-is whole-row gather/scatter by computed indices (sort reorder, compaction,
-join emit), and XLA/Mosaic lowers gathers along the major axis efficiently
-while gathers along the 128-lane minor axis hit slow paths. Column access
-(`column(c)`) is a cheap strided slice either way, so the API stays columnar.
+Physical layout note: the buffer is row-major ``[capacity, ncol]``. The
+operators slice columns out (`column(c)`, a strided slice) and re-stack them
+after each multi-operand sort, so the API stays columnar whatever the layout.
 
 Capacity is static (XLA wants static shapes); ``num_rows`` carries the
 data-dependent row count produced by filters and joins. Rows at index
@@ -21,12 +18,13 @@ masks them out (see SURVEY.md section 7 "Hard parts": capacity-bounded buffers
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Sequence
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 # Sentinel used for masked-out sort keys: sorts after every real key.
 def key_sentinel(dtype) -> jnp.ndarray:
@@ -36,19 +34,29 @@ def key_sentinel(dtype) -> jnp.ndarray:
     return jnp.array(jnp.iinfo(dtype).max, dtype=dtype)
 
 
-@struct.dataclass
+@functools.partial(
+    jax.tree_util.register_dataclass,
+    data_fields=["data", "num_rows"],
+    meta_fields=["names"],
+)
+@dataclasses.dataclass(frozen=True)
 class Table:
-    """A fixed-capacity columnar table on device.
+    """A fixed-capacity columnar table on device (a JAX pytree).
 
     Attributes:
       data: ``[capacity, ncol]`` array; ``data[:, c]`` is column ``c``.
       num_rows: int32 scalar; rows ``[0, num_rows)`` are valid.
-      names: static tuple of column names (``col1``, ``col2``, ...).
+      names: static tuple of column names (``col1``, ``col2``, ...); pytree
+        metadata, so it stays a Python value under ``jit``.
     """
 
     data: jax.Array
     num_rows: jax.Array
-    names: tuple = struct.field(pytree_node=False, default=())
+    names: tuple = ()
+
+    def replace(self, **changes) -> "Table":
+        """Copy with the given fields replaced."""
+        return dataclasses.replace(self, **changes)
 
     # --- static shape accessors -------------------------------------------
     @property

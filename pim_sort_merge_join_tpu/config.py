@@ -34,7 +34,6 @@ class Predicate:
 
 JoinMode = Literal["one_to_one", "inner"]
 JoinAlgorithm = Literal["sort_merge", "hash"]
-SortAlgorithm = Literal["auto", "xla", "hbm_pallas", "pallas_bitonic"]
 PartitionScheme = Literal["range", "hash"]
 
 
@@ -59,22 +58,21 @@ class EngineConfig:
     # data fits; ingest validates the fit and raises instead of wrapping.
     dtype: str = "int64"
 
-    # Donate input table buffers to the jitted pipeline (XLA reuses them
-    # for intermediates -- halves peak HBM at billion-row scale). Leave off
-    # when the same Table objects are reused across calls.
+    # Donate the input tables to the jitted pipeline; they are deleted after
+    # the call, so leave off when the same Table objects are reused. XLA
+    # aliases a donated buffer only to an output of the same shape: the 1:1
+    # output is [n, 7] against [n, 4] inputs, so on an H100 only the
+    # row-count scalar is reused and peak device memory does not drop
+    # (tests/test_gpu.py; ROADMAP C9).
     donate_inputs: bool = False
 
     # --- algorithm selection ---
     join_algorithm: JoinAlgorithm = "sort_merge"
-    # "auto" = the HBM-scale Pallas sort on TPU above the measured v5e
-    # crossover (2^24 rows for 32-bit keys, 2^27 for 64-bit; ops/sort.py,
-    # artifacts/sort_r02.json), jax.lax.sort below it.
-    sort_algorithm: SortAlgorithm = "auto"
     partition_scheme: PartitionScheme = "range"
     # Sort the 1:1 join's merge pass on int32 keys even for 64-bit tables
-    # (SURVEY.md §7 "pack key when key width permits"): int64 compares cost
-    # two words per comparator step on the VPU, so narrowing speeds every
-    # key sort. Valid only when every join-key VALUE fits int32.
+    # (SURVEY.md §7 "pack key when key width permits"): the merge sort's key
+    # operand shrinks from 8 to 4 bytes. Valid only when every join-key
+    # VALUE fits int32.
     #   "auto" (default) -- the DRIVER layer decides per query: run_csv
     #     probes the host arrays; the distributed pipelines probe the
     #     global device array (one replicated reduce, so every process of
@@ -86,9 +84,8 @@ class EngineConfig:
     #   False -- force off.
     narrow_keys: bool | str = "auto"
     # Ride the 1:1 join's emit-sort PAYLOAD planes (the row data) as int32
-    # as well: those two permutation sorts move 36+ bytes/row otherwise and
-    # are the pipeline's single largest cost block (artifacts/
-    # attrib_r03.json: ~114 of 273 ms at 10M rows). Valid only when every
+    # as well: those two permutation sorts move 36+ bytes/row otherwise.
+    # Valid only when every
     # VALUE in both tables fits int32 -- true for the reference generator,
     # whose values all lie in [1, 3N] (generate_data.py:7-9). Same
     # tri-state contract as narrow_keys; "auto" probes the whole tables.

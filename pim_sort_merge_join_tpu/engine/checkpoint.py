@@ -206,7 +206,7 @@ def _table_to_host(t) -> dict[str, Any]:
         # _host_arrays replicates across processes first when the global
         # array is not fully addressable (multi-process mesh) -- a bare
         # device_get would raise there. Collective in that case: every
-        # process must checkpoint the same stage (VERDICT r3 weak #7).
+        # process must checkpoint the same stage.
         data, counts = t._host_arrays()
         return {
             "kind": "sharded",

@@ -1,6 +1,6 @@
 """Multi-chip distributed pipeline over a `jax.sharding.Mesh`.
 
-The TPU-native replacement for the reference's whole multi-DPU orchestration
+The replacement for the reference's whole multi-DPU orchestration
 (SURVEY.md section 3.1): host row-block scatter (app.c:179-218) becomes a
 sharded device array; the per-DPU select/sort kernels become per-shard
 vectorized ops inside `shard_map`; the host-driven pairwise merge tree
@@ -30,13 +30,13 @@ materialization.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Sequence
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from pim_sort_merge_join_tpu.columnar.table import Table, key_sentinel
@@ -55,17 +55,27 @@ from pim_sort_merge_join_tpu.ops import join as join_ops
 from pim_sort_merge_join_tpu.ops import sort as sort_ops
 
 
-@struct.dataclass
+@functools.partial(
+    jax.tree_util.register_dataclass,
+    data_fields=["data", "counts"],
+    meta_fields=["names"],
+)
+@dataclasses.dataclass(frozen=True)
 class ShardedTable:
-    """A table partitioned row-wise across a mesh axis.
+    """A table partitioned row-wise across a mesh axis (a JAX pytree).
 
     ``data`` is ``[P * shard_capacity, ncol]`` sharded ``P(axis, None)``;
     ``counts`` is ``[P]`` sharded ``P(axis)`` -- valid-row count per shard.
+    ``names`` is static pytree metadata.
     """
 
     data: jax.Array
     counts: jax.Array
-    names: tuple = struct.field(pytree_node=False, default=())
+    names: tuple = ()
+
+    def replace(self, **changes) -> "ShardedTable":
+        """Copy with the given fields replaced."""
+        return dataclasses.replace(self, **changes)
 
     @property
     def ncol(self) -> int:
@@ -111,14 +121,13 @@ class ShardedTable:
             start += n_i
         # make_array_from_callback works identically for single-process and
         # multi-process meshes (device_put cannot target non-addressable
-        # shards); every process must hold the same ``array``.
-        buf = jnp.asarray(buf, dtype=dtype)
-        counts_j = jnp.asarray(counts)
+        # shards); every process must hold the same ``array``. The callback
+        # slices the HOST buffer, so each device receives only its own block.
         data = jax.make_array_from_callback(
             buf.shape, NamedSharding(mesh, P(axis, None)), lambda i: buf[i]
         )
         cnt = jax.make_array_from_callback(
-            counts_j.shape, NamedSharding(mesh, P(axis)), lambda i: counts_j[i]
+            counts.shape, NamedSharding(mesh, P(axis)), lambda i: counts[i]
         )
         return cls(data=data, counts=cnt, names=tuple(names))
 
@@ -334,9 +343,7 @@ def distributed_exchange_core(
         else:
             local = Table(data=ex.data, num_rows=ex.num_rows, names=())
             if not fused_local_join:
-                local = sort_ops.sort_by_key(
-                    local, key, algorithm=config.sort_algorithm
-                )
+                local = sort_ops.sort_by_key(local, key)
         return (
             local.data,
             local.num_rows.reshape(1),
@@ -451,7 +458,6 @@ def distributed_join_core(
             mode=config.join_mode, presorted=not fused_local_join,
             out_capacity=out_cap, narrow=config.narrow_keys,
             narrow_data=config.narrow_data,
-            sort_algorithm=config.sort_algorithm,
         )
         return out.data, out.num_rows.reshape(1)
 

@@ -1,6 +1,6 @@
 """The staged query pipeline: ingest -> filter -> sort -> join -> materialize.
 
-TPU-native re-design of the reference host orchestration (`app.c` main,
+Re-design of the reference host orchestration (`app.c` main,
 775 lines): where the reference runs four separately-launched DPU programs
 with host gathers/re-scatters between stages (select -> per-DPU sort ->
 pairwise merge-tree reduction -> co-partitioned join; call stack in SURVEY.md
@@ -30,38 +30,18 @@ from pim_sort_merge_join_tpu.ops import join as join_ops
 from pim_sort_merge_join_tpu.ops import sort as sort_ops
 
 
-_TRANSFER_WARM = False
-
-
-def warmup_transfer() -> None:
-    """Force one tiny device->host readback to absorb lazy transfer-path init.
-
-    Some PJRT transports (e.g. tunneled devices) pay a large one-time cost on
-    the first device-to-host transfer of the process; doing it here keeps it
-    out of stage timings.
-    """
-    global _TRANSFER_WARM
-    if _TRANSFER_WARM:
-        return
-    import jax.numpy as jnp
-
-    int(jax.jit(lambda: jnp.zeros((), jnp.int32))())
-    _TRANSFER_WARM = True
-
-
 def pipeline_core(t1: Table, t2: Table, config: EngineConfig) -> Table:
     """The traced filter -> sort -> join dataflow on two device tables."""
     if config.join_algorithm == "sort_merge" and config.join_mode == "one_to_one":
         # Fused path: filtering is a key mask and the join's slot-permutation
         # sorts subsume the standalone compaction + table sorts -- ~2x fewer
-        # HBM passes than the staged path below, byte-identical output.
+        # memory passes than the staged path below, byte-identical output.
         m1 = filter_ops.predicate_mask(t1, config.predicate1)
         m2 = filter_ops.predicate_mask(t2, config.predicate2)
         return join_ops.filter_join_one_to_one(
             t1, t2, config.join_key1, config.join_key2, m1, m2,
             narrow=config.narrow_keys,
             narrow_data=config.narrow_data,
-            sort_algorithm=config.sort_algorithm,
         )
     f1 = filter_ops.apply_filter(t1, config.predicate1)
     f2 = filter_ops.apply_filter(t2, config.predicate2)
@@ -70,8 +50,8 @@ def pipeline_core(t1: Table, t2: Table, config: EngineConfig) -> Table:
 
         # Hash join orders itself in hash space; it never needs the sorted
         # runs, so the branch sits BEFORE the sort stage -- tracing sorts
-        # here and relying on XLA DCE is exactly the silent-dead-code class
-        # that invalidated the round-1/2 benchmarks (VERDICT r3 weak #8).
+        # here and relying on XLA's dead-code elimination to drop them would
+        # leave traced code that never runs.
         # Output row order is the STREAMING contract (table-1 filtered-row
         # order, the standard hash-join order; tests/test_hash_ops.py), not
         # the sort-merge path's key order -- same multiset of rows.
@@ -83,12 +63,10 @@ def pipeline_core(t1: Table, t2: Table, config: EngineConfig) -> Table:
             mode=config.join_mode, out_capacity=out_cap,
         )
     s1 = sort_ops.sort_by_key(
-        f1, config.join_key1, algorithm=config.sort_algorithm,
-        narrow=config.narrow_keys is True,
+        f1, config.join_key1, narrow=config.narrow_keys is True
     )
     s2 = sort_ops.sort_by_key(
-        f2, config.join_key2, algorithm=config.sort_algorithm,
-        narrow=config.narrow_keys is True,
+        f2, config.join_key2, narrow=config.narrow_keys is True
     )
     out_cap = None
     if config.join_mode == "inner":
@@ -98,7 +76,6 @@ def pipeline_core(t1: Table, t2: Table, config: EngineConfig) -> Table:
         mode=config.join_mode, out_capacity=out_cap,
         narrow=config.narrow_keys,
         narrow_data=config.narrow_data,
-        sort_algorithm=config.sort_algorithm,
     )
 
 
@@ -363,12 +340,10 @@ class QueryPipeline:
                         sort_ops.sort_by_key(
                             filter_ops.apply_filter(a, cfg.predicate1),
                             cfg.join_key1,
-                            algorithm=cfg.sort_algorithm,
                         ),
                         sort_ops.sort_by_key(
                             filter_ops.apply_filter(b, cfg.predicate2),
                             cfg.join_key2,
-                            algorithm=cfg.sort_algorithm,
                         ),
                     )
                 )

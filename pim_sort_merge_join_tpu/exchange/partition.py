@@ -1,6 +1,6 @@
 """Key-space partitioning: splitter sampling and destination assignment.
 
-The TPU-native replacement for the reference's two partitioning mechanisms
+The replacement for the reference's two partitioning mechanisms
 (SURVEY.md sections 2c/5): the host binary merge tree that funnels all rows
 into ONE device per table (app.c:419-547, the scaling bottleneck), and the
 stage-4 boundary co-partitioning by binary search (app.c:585-633). Instead we

@@ -1,11 +1,11 @@
 """The all_to_all row exchange (runs inside shard_map).
 
-The TPU-native replacement for the reference's host-mediated data movement
-(SURVEY.md section 2d): where every inter-DPU byte bounces through host DRAM
-via `dpu_push_xfer` gathers, host memcpy regroup and re-scatter
-(app.c:272-288, 425-501), this module moves rows device-to-device over
-ICI/DCN with a single `lax.all_to_all` inside `shard_map` -- no host on the
-path.
+The replacement for the reference's host-mediated data movement (SURVEY.md
+section 2d): where every inter-DPU byte bounces through host DRAM via
+`dpu_push_xfer` gathers, host memcpy regroup and re-scatter (app.c:272-288,
+425-501), this module moves rows device-to-device (NVLink between the GPUs
+of a host) with a single `lax.all_to_all` inside `shard_map` -- no host on
+the path.
 
 Variable per-destination row counts (the "dynamic shapes" hard part,
 SURVEY.md section 7) are handled with fixed-capacity buckets: each shard
@@ -55,8 +55,7 @@ def all_to_all_exchange(
         bit-identical for any value; >1 gives XLA's latency-hiding
         scheduler finer units to overlap with independent compute (the
         other table's local sort in the fused pipeline region) -- the
-        TPU-native replacement for the reference's DPU_XFER_ASYNC +
-        dpu_callback overlap (dpu.h:72-82, :651; SURVEY.md section 7
+        replacement for the reference's DPU_XFER_ASYNC + dpu_callback overlap (dpu.h:72-82, :651; SURVEY.md section 7
         "double-buffered chunked all_to_all").
 
     Rows keep a deterministic global order: received rows are ordered by

@@ -1,6 +1,6 @@
 // Multithreaded integer-CSV parser (the engine's one native component).
 //
-// TPU-native replacement for the reference's single-threaded strtok/atoi
+// Replacement for the reference's single-threaded strtok/atoi
 // ingest loop (load_csv, app.c:59-92): the host-side CSV parse is the only
 // part of the pipeline XLA cannot help with, and at >=100M-row benchmark
 // scale a Python/numpy parse dominates end-to-end wall time. Parallel

@@ -1,12 +1,11 @@
 """Vectorized selection (filter) operator.
 
-TPU-native re-design of the reference SELECT kernel (select.c): where the DPU
-kernel scans 256-byte MRAM chunks per tasklet, computes an exclusive prefix
-count through a serial tasklet handshake chain (select.c:42-61) and compacts
-rows in place, this operator evaluates the predicate over the whole column
-vector and compacts with a parallel prefix-sum scatter -- the same
-count-then-place structure, expressed as data parallelism XLA maps onto the
-VPU in one fused pass.
+Re-design of the reference SELECT kernel (select.c): where the DPU kernel
+scans 256-byte MRAM chunks per tasklet, computes an exclusive prefix count
+through a serial tasklet handshake chain (select.c:42-61) and compacts rows
+in place, this operator evaluates the predicate over the whole column vector
+and compacts with one stable sort on the inverted mask -- the same
+count-then-place result, expressed as data parallelism XLA fuses.
 
 The reference's only predicate form is strictly-greater-than on one column
 (select.c:31); we support the full comparison set (config.PredicateOp).
@@ -42,9 +41,7 @@ def compact(table: Table, mask: jax.Array) -> Table:
     Parallel equivalent of the reference's handshake prefix-count + dense
     write-back (select.c:149-156), realized as ONE stable multi-operand
     sort keyed on the inverted mask: selected rows float to the front in
-    original order. On TPU this is ~8x cheaper than the equivalent
-    prefix-sum + row scatter (XLA's sort is sequential-access; big row
-    scatters are random-access).
+    original order, with the row's columns riding the sort as operands.
     """
     count = jnp.sum(mask, dtype=jnp.int32)
     inv = (~mask).astype(jnp.int8)

@@ -1,6 +1,6 @@
 """Pairwise merge of sorted runs, and the log-depth merge-tree reduction.
 
-TPU-native re-design of the reference's merge phase:
+Re-design of the reference's merge phase:
 
 - `merge_dpu.c` merges two sorted runs inside one DPU: tasklets slice run 1
   (merge_dpu.c:70-85), binary-search run 2 for the co-partition boundary
@@ -14,15 +14,7 @@ TPU-native re-design of the reference's merge phase:
 Here the pairwise merge is ONE stable multi-operand sort of the
 concatenated runs (run 1 first): stability alone realizes the reference's
 tie rule (run-1 rows win ties, each run's inner order preserved) with no
-cursor walk, no shift pass -- and no scatters. The previous formulation
-(cross-rank via ``searchsorted(method='sort')`` + whole-row scatters) was
-evicted in round 5: both primitives were measured 2-12x worse than sorts
-on TPU (311 ms hidden rank sorts, 871 ms row scatters at 10M x 4 cols;
-artifacts/sort_variants_r04.json), the same anti-patterns rounds 2-4
-purged from the join paths. The sort routes through the
-`stable_key_sort` seam, so at HBM scale it dispatches to the Pallas
-chunk-bitonic + merge-path kernel -- whose merge passes ARE pairwise run
-merges, making this the natural TPU expression of merge_dpu.c.
+cursor walk, no shift pass -- and no scatters.
 
 Note the engine's *distributed* pipeline does not use a merge tree at all --
 a single splitter-based all_to_all range exchange replaces the whole

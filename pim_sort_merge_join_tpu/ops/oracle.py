@@ -57,6 +57,37 @@ def join_one_to_one_oracle(
     return np.stack(out)
 
 
+def _run_ranks(keys: np.ndarray) -> np.ndarray:
+    """Occurrence rank of each element within its run of equal keys."""
+    n = keys.shape[0]
+    iota = np.arange(n, dtype=np.int64)
+    head = np.ones(n, dtype=bool)
+    head[1:] = keys[1:] != keys[:-1]
+    return iota - np.maximum.accumulate(np.where(head, iota, 0))
+
+
+def join_one_to_one_vectorized(
+    t1: np.ndarray, t2: np.ndarray, key1: int, key2: int
+) -> np.ndarray:
+    """`join_one_to_one_oracle` without the Python loop, for large inputs.
+
+    Both tables sorted ascending on their keys. The cursor walk pairs the
+    k-th row of a key's run in t1 with the k-th row of that key's run in
+    t2, so: rank each t1 row within its run, look its key up in t2 (run
+    start ``lo``, run length ``hi - lo``), and keep it iff its rank is
+    below the t2 run length, partnering row ``lo + rank``. Output follows
+    t1 row order, as the loop's does. Tested equal to the loop.
+    """
+    c2 = t2.shape[1]
+    keep2 = [c for c in range(c2) if c != key2]
+    k1, k2 = t1[:, key1], t2[:, key2]
+    occ = _run_ranks(k1)
+    lo = np.searchsorted(k2, k1, side="left")
+    hi = np.searchsorted(k2, k1, side="right")
+    hit = occ < hi - lo
+    return np.concatenate([t1[hit], t2[(lo + occ)[hit]][:, keep2]], axis=1)
+
+
 def join_inner_oracle(t1: np.ndarray, t2: np.ndarray, key1: int, key2: int) -> np.ndarray:
     """Standard inner join, output ordered by (t1 row index, t2 row index)."""
     c1, c2 = t1.shape[1], t2.shape[1]
@@ -96,7 +127,7 @@ def pipeline_oracle(
     s2 = sort_oracle(f2, key2)
     if mode == "inner":
         return join_inner_oracle(s1, s2, key1, key2)
-    return join_one_to_one_oracle(s1, s2, key1, key2)
+    return join_one_to_one_vectorized(s1, s2, key1, key2)
 
 
 def hash_aggregate_oracle(

@@ -1,14 +1,14 @@
 """Sort operator: order a table ascending by its join-key column.
 
-TPU-native re-design of the reference sort stage: the DPU kernel runs an
-O(rows^2) per-tasklet insertion sort directly on MRAM rows followed by a
-log2(16)-round tasklet merge tree (sort_dpu.c:157-187, :251-323), and the host
-then merges per-DPU runs pairwise in a log-depth DPU tree (app.c:408-547).
-Here a single device sorts its whole partition in one O(n log n) vectorized
-pass -- `jax.lax.sort` lowers to the XLA TPU sort (bitonic network over
-lanes), or the in-repo Pallas bitonic kernel (`ops/pallas/sort_kernel.py`)
-for the hand-tuned path. Cross-device merging is replaced entirely by the
-range-exchange in `exchange/` (no merge tree: one all_to_all round).
+Re-design of the reference sort stage: the DPU kernel runs an O(rows^2)
+per-tasklet insertion sort directly on MRAM rows followed by a log2(16)-round
+tasklet merge tree (sort_dpu.c:157-187, :251-323), and the host then merges
+per-DPU runs pairwise in a log-depth DPU tree (app.c:408-547). Here a single
+device sorts its whole partition in one O(n log n) vectorized pass with
+`jax.lax.sort`, which XLA lowers to its own sort kernel or, for one key with
+at most one payload, to a library radix sort. Cross-device merging is
+replaced entirely by the range-exchange in `exchange/` (no merge tree: one
+all_to_all round).
 
 Padding rows carry a +inf key sentinel so they sort to the tail and stay
 invalid.
@@ -21,52 +21,16 @@ import jax.numpy as jnp
 
 from pim_sort_merge_join_tpu.columnar.table import Table
 
-# Measured crossovers on TPU v5e (bench/sort_bench.py, artifacts/
-# sort_r02.json): with single-plane (32-bit) keys the HBM-scale Pallas sort
-# beats jax.lax.sort from 2^24 keys up (47.1 vs 49.5 ms at 2^24, 104.0 vs
-# 113.5 at 2^25); 64-bit keys decompose into two planes, which doubles the
-# compare work, and the measured slopes put that crossover near 2^27.
-# "auto" switches per key width on TPU backends.
-HBM_SORT_AUTO_MIN_32 = 1 << 24
-HBM_SORT_AUTO_MIN_64 = 1 << 27
 
-
-def _auto_algorithm(n: int, dtype, on_tpu: bool) -> str:
-    """Measured-crossover dispatch (artifacts/sort_r02.json, sort_r03.json).
-
-    <= 32-bit keys: the one-plane Pallas kernel beats `jax.lax.sort` from
-    2^24 elements. 64-bit integer keys: the range-adaptive wrapper wins
-    from the SAME crossover whenever the runtime key span fits int32
-    (1.36x at 16M, 1.42x at 32M -- measured, not extrapolated); its
-    non-fitting branch falls back to `lax.sort` until the wide two-plane
-    kernel's ~2^27 crossover. Other 8-byte dtypes (float64) have no
-    adaptive rebase and keep the wide-kernel crossover.
-    """
-    if not on_tpu:
-        return "xla"
-    itemsize = jnp.dtype(dtype).itemsize
-    if itemsize <= 4:
-        return "hbm_pallas" if n >= HBM_SORT_AUTO_MIN_32 else "xla"
-    if jnp.issubdtype(dtype, jnp.integer):
-        return "hbm_adaptive" if n >= HBM_SORT_AUTO_MIN_32 else "xla"
-    return "hbm_pallas" if n >= HBM_SORT_AUTO_MIN_64 else "xla"
-
-
-def sort_by_key(
-    table: Table, key: int, *, algorithm: str = "auto", narrow: bool = False
-) -> Table:
+def sort_by_key(table: Table, key: int, *, narrow: bool = False) -> Table:
     """Sort valid rows ascending by column ``key``; stable on ties.
 
-    Algorithms: "xla" (`jax.lax.sort`), "hbm_pallas" (the HBM-scale Pallas
-    chunk-bitonic + merge-path sort, any size), "pallas_bitonic" (the
-    VMEM-resident kernel), or "auto" -- hbm_pallas on TPU at or above the
-    measured per-key-width crossover (``HBM_SORT_AUTO_MIN_32`` /
-    ``HBM_SORT_AUTO_MIN_64``), xla otherwise.
+    Multi-operand sort: the row's columns ride the sort as payload operands
+    instead of an argsort followed by a row gather.
 
     ``narrow`` (driver-resolved, see config.narrow_keys): sort 64-bit
     integer keys as a single int32 plane -- every valid key value must fit
-    int32 (validated at ingest). Halves comparator work in every backend
-    and moves the auto crossover to the 32-bit one.
+    int32 (validated at ingest).
     """
     keys = table.masked_keys(key)
     if (
@@ -77,118 +41,22 @@ def sort_by_key(
         from pim_sort_merge_join_tpu.ops.join import _narrow32
 
         keys = _narrow32(keys)
-    if algorithm == "auto":
-        on_tpu = jax.default_backend() not in ("cpu", "gpu")
-        algorithm = _auto_algorithm(table.capacity, keys.dtype, on_tpu)
-    if algorithm in ("hbm_pallas", "hbm_adaptive"):
-        from pim_sort_merge_join_tpu.ops.pallas.hbm_sort import (
-            hbm_sort,
-            hbm_sort_adaptive,
-        )
-
-        # Multi-operand: rows ride through the sort as 32-bit planes; the
-        # kernel's synthetic arange plane makes it stable. Padding rows
-        # carry the key sentinel and stay at the tail.
-        cols = tuple(table.data[:, c] for c in range(table.ncol))
-        if algorithm == "hbm_adaptive":
-            wide = "hbm" if table.capacity >= HBM_SORT_AUTO_MIN_64 else "xla"
-            sorted_ops = hbm_sort_adaptive((keys,) + cols, wide_algorithm=wide)
-        else:
-            sorted_ops = hbm_sort((keys,) + cols)
-        data = jnp.stack(sorted_ops[1:], axis=1)
-        return table.replace(data=data)
-    if algorithm == "xla":
-        # Multi-operand sort: rows ride along with the key through the sort
-        # network (sequential access) -- measured ~3x faster at 16M rows
-        # than argsort + random row gather.
-        cols = tuple(table.data[:, c] for c in range(table.ncol))
-        sorted_ops = jax.lax.sort((keys,) + cols, num_keys=1, is_stable=True)
-        data = jnp.stack(sorted_ops[1:], axis=1)
-        return table.replace(data=data)
-    if algorithm == "pallas_bitonic":
-        from pim_sort_merge_join_tpu.ops.pallas.sort_kernel import sort_pairs_pallas
-
-        # The Pallas kernel sorts int32 pairs; keys wider than 32 bits must
-        # fit int32 (true for the reference generator: keys <= 3N). Padding
-        # sentinels map to int32 max explicitly since a plain cast of the
-        # int64 sentinel would wrap to -1.
-        if keys.dtype != jnp.int32:
-            keys32 = jnp.where(
-                table.valid_mask(),
-                jnp.clip(keys, jnp.iinfo(jnp.int32).min, jnp.iinfo(jnp.int32).max),
-                jnp.iinfo(jnp.int32).max,
-            ).astype(jnp.int32)
-        else:
-            keys32 = keys
-        _, order = sort_pairs_pallas(
-            keys32, jnp.arange(table.capacity, dtype=jnp.int32)
-        )
-        order = order.astype(jnp.int32)
-    else:
-        raise ValueError(f"unknown sort algorithm {algorithm!r}")
-    data = jnp.take(table.data, order, axis=0)
-    return table.replace(data=data)
+    cols = tuple(table.data[:, c] for c in range(table.ncol))
+    sorted_ops = jax.lax.sort((keys,) + cols, num_keys=1, is_stable=True)
+    return table.replace(data=jnp.stack(sorted_ops[1:], axis=1))
 
 
 def stable_key_sort(
     operands: tuple[jax.Array, ...],
     *,
-    algorithm: str = "auto",
-    stable: bool = True,
     num_keys: int = 1,
     unique_keys: bool = False,
 ) -> tuple[jax.Array, ...]:
-    """Stable multi-operand sort by ``operands[:num_keys]`` with dispatch.
+    """Stable multi-operand sort by ``operands[:num_keys]``.
 
-    The algorithm-selection seam for the join's internal sorts (the 1:1
-    merged-domain core issues two 2n-element pair sorts plus two emit
-    permutation sorts, ops/join.py): "auto" picks the HBM-scale Pallas sort
-    on TPU at or above the measured per-key-width crossover, `jax.lax.sort`
-    otherwise. Semantics match
-    ``jax.lax.sort(operands, num_keys=num_keys, is_stable=True)`` exactly
-    (the Pallas kernel's synthetic arange plane realizes the stability).
-
-    ``unique_keys=True`` asserts the joint key tuple is unique (and, on the
-    Pallas path, never all-INT32-MAX; see hbm_sort). Both backends then
-    skip their tie-break machinery -- XLA drops the synthetic iota plane
-    (77.8 -> 55.0 ms for a 2-key sort at 20M, bench r4), the Pallas kernel
-    drops its synthetic key plane (one plane less per pass). ``stable=False``
-    relaxes tie order without the uniqueness claim (XLA only; the Pallas
-    backends stay stable, a legal refinement).
+    Semantics equal ``jax.lax.sort(operands, num_keys=num_keys,
+    is_stable=True)``. ``unique_keys=True`` asserts the joint key tuple is
+    unique, so stability is vacuous and the sort may drop its tie-break
+    machinery (the join's four internal sorts all qualify).
     """
-    if algorithm in ("auto", "pallas_bitonic"):
-        # pallas_bitonic is a VMEM-resident kernel for table sorts; for raw
-        # operand sorts it has no multi-operand form -- treat as auto.
-        n = operands[0].shape[0]
-        on_tpu = jax.default_backend() not in ("cpu", "gpu")
-        algorithm = _auto_algorithm(n, operands[0].dtype, on_tpu)
-    if algorithm == "hbm_adaptive":
-        from pim_sort_merge_join_tpu.ops.pallas.hbm_sort import hbm_sort_adaptive
-
-        n = operands[0].shape[0]
-        wide = "hbm" if n >= HBM_SORT_AUTO_MIN_64 else "xla"
-        return hbm_sort_adaptive(
-            operands,
-            wide_algorithm=wide,
-            num_keys=num_keys,
-            unique_keys=unique_keys,
-        )
-    if algorithm == "hbm_pallas":
-        from pim_sort_merge_join_tpu.ops.pallas.hbm_sort import hbm_sort
-
-        return hbm_sort(operands, num_keys=num_keys, unique_keys=unique_keys)
-    if algorithm == "xla":
-        return jax.lax.sort(
-            operands,
-            num_keys=num_keys,
-            is_stable=stable and not unique_keys,
-        )
-    raise ValueError(f"unknown sort algorithm {algorithm!r}")
-
-
-def sorted_keys(table: Table, key: int) -> jax.Array:
-    """Key column of an already-sorted table, with +inf padding tail.
-
-    Suitable for `searchsorted` without re-masking.
-    """
-    return table.masked_keys(key)
+    return jax.lax.sort(operands, num_keys=num_keys, is_stable=not unique_keys)

@@ -44,7 +44,7 @@ def _add_run_parser(sub):
         type=int,
         metavar="N",
         default=None,
-        help="run on N virtual CPU devices (no TPU needed)",
+        help="run on N virtual CPU devices (no GPU needed)",
     )
     p.add_argument(
         "--dtype",
@@ -93,6 +93,9 @@ def _cmd_run(args) -> int:
         from pim_sort_merge_join_tpu.runner.simulator import use_simulator
 
         use_simulator(args.simulator)
+    from pim_sort_merge_join_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from pim_sort_merge_join_tpu.config import EngineConfig, Predicate
 
@@ -168,7 +171,7 @@ def _cmd_generate(args) -> int:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        prog="smj-tpu", description="TPU-native sort/merge-join query engine"
+        prog="smj-tpu", description="sort/merge-join query engine on JAX"
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_run_parser(sub)

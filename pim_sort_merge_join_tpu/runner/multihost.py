@@ -1,16 +1,19 @@
 """Multi-host entry point.
 
-Scales the SPMD pipeline from one host to a pod slice (the BASELINE.json
-N>=2-hosts configuration): `jax.distributed.initialize` wires the hosts into
-one global runtime, the mesh spans every device in the slice, and the same
-`distributed_pipeline_core` program runs unchanged -- per-host shards ride
-ICI within a host and DCN across hosts via the identical all_to_all.
+Scales the SPMD pipeline beyond one host (the BASELINE.json N>=2-hosts
+configuration). One process drives all the GPUs of its host;
+`jax.distributed.initialize` joins the processes of several hosts into one
+global runtime, the mesh spans every device, and the same
+`distributed_pipeline_core` program runs unchanged -- the all_to_all
+exchange crosses NVLink between the cards of a host and the network
+between hosts. A single host needs no initialization: `smj-tpu run
+--distributed` meshes over its cards directly.
 
 The reference has no multi-node story at all (its scale ceiling is 64 DPUs
-on one host's memory bus, user.h:3); this module is the capability the
-TPU-native design adds.
+on one host's memory bus, user.h:3).
 
-Launch (one process per host, e.g. under a pod scheduler):
+Launch (one process per host; the coordinator address, process count and
+process id must be given, nothing discovers them):
 
     python -m pim_sort_merge_join_tpu.runner.multihost \
         --coordinator <host0>:8476 --num-processes N --process-id $ID \
@@ -34,7 +37,7 @@ def initialize_multihost(
     ``cpu_devices`` forces the CPU backend with N local virtual devices --
     the multi-PROCESS simulator configuration (reference S3 analog): N
     processes x M virtual devices exercise real process boundaries, Gloo
-    collectives, and the process-0-writes contract without TPU hardware.
+    collectives, and the process-0-writes contract without a GPU.
     """
     import jax
 
@@ -100,10 +103,8 @@ def run_query(args) -> int:
         return 0
 
     if args.bench_reps:
-        # Steady-state A/B timing mode (bench/overlap_bench.py): warm up
-        # once (compile + first-transfer), then time whole run_tables
-        # calls. On the CPU/Gloo backend block_until_ready is a real
-        # fence, so wall clock is honest here.
+        # Steady-state timing mode: warm up once (compile), then time whole
+        # run_tables calls, each fenced by block_until_ready.
         import time as _time
 
         pipe.run_tables(t1, t2)

@@ -1,11 +1,11 @@
-"""CPU "simulator" backend: the engine without TPU hardware.
+"""CPU "simulator" backend: the engine without a GPU.
 
 The analog of the reference's functional-simulator backend
 (`libdpufsim.so`, selected by the `"backend=simulator"` profile string at
 app.c:175 / `UPMEM_PROFILE_BASE`, upmem_env.sh:15-20; SURVEY.md S3): the
 same engine code runs on N virtual CPU devices in one process, so
 multi-device behavior -- sharding, all_to_all exchange, SPMD join -- is
-fully exercised on a machine with no TPU.
+fully exercised on a machine with no accelerator.
 
 Must be called before JAX initializes a backend (i.e. before the first
 jax array/computation); raises otherwise.

@@ -1,4 +1,4 @@
-"""Side-by-side launcher: CPU oracle vs TPU engine on the same inputs.
+"""Side-by-side launcher: CPU oracle vs the engine on the same inputs.
 
 The analog of the reference's `run.py:1-25` (make -> ./cpu_app -> ./app):
 runs the numpy oracle pipeline (the cpu_app equivalent) and the device
@@ -7,18 +7,22 @@ reference, which left output comparison to the user's eyeballs
 (README.md:63-64) -- verifies the outputs match before reporting.
 
 Usage: python run.py [data1.csv data2.csv [result.csv]]
+Without inputs it first writes a 100k-row pair (data1.csv, data2.csv) with
+the reference generator's distribution, from a fixed seed.
 """
 
 import sys
 import time
 
-DEFAULT_D1 = "/root/reference/sort-merge-join/data/data1.csv"
-DEFAULT_D2 = "/root/reference/sort-merge-join/data/data2.csv"
-
 
 def main() -> int:
-    d1 = sys.argv[1] if len(sys.argv) > 1 else DEFAULT_D1
-    d2 = sys.argv[2] if len(sys.argv) > 2 else DEFAULT_D2
+    if len(sys.argv) > 2:
+        d1, d2 = sys.argv[1], sys.argv[2]
+    else:
+        from pim_sort_merge_join_tpu.columnar.generate import write_table_pair
+
+        d1, d2 = "data1.csv", "data2.csv"
+        write_table_pair(d1, d2, 100_000, seed=1)
     out = sys.argv[3] if len(sys.argv) > 3 else "result.csv"
 
     import numpy as np
@@ -36,7 +40,9 @@ def main() -> int:
     cpu_ms = (time.perf_counter() - t0) * 1000
     print(f"rows: {want.shape[0]}   exec time: {cpu_ms:.1f} ms")
 
-    print("######### TPU engine #########")
+    import jax
+
+    print(f"######### engine on {jax.devices()[0].device_kind} #########")
     pipe = smj.QueryPipeline(smj.EngineConfig())
     result = pipe.run_csv(d1, d2, out)
     got = result.to_numpy()

@@ -2,7 +2,7 @@
 
 The multi-device analog of the reference's simulator-backed runs
 (SURVEY.md section 4 item 2): N emulated devices in one process exercise the
-shard_map + all_to_all path without TPU hardware.
+shard_map + all_to_all path without GPUs.
 """
 
 import jax

@@ -73,12 +73,13 @@ def test_donated_inputs_pipeline(small_tables):
     out = pipe.run_tables(t1, t2)
     want = oracle.pipeline_oracle(r1, r2, pred1=(0, ">", 100), pred2=(0, ">", 100))
     np.testing.assert_array_equal(out.to_numpy(), want)
-    # Donated buffers are consumed where the backend honors donation
-    # (CPU ignores it with a warning; TPU deletes).
+    # Donated buffers are consumed where the backend honors donation (CPU
+    # ignores it with a warning). XLA reuses a donated buffer only for an
+    # output of its shape, which here is a row-count scalar.
     import jax
 
-    if jax.default_backend() == "tpu":
-        assert t1.data.is_deleted()
+    if jax.default_backend() != "cpu":
+        assert t1.num_rows.is_deleted() or t2.num_rows.is_deleted()
 
 
 def test_float64_pipeline_matches_oracle(small_tables):

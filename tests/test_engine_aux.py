@@ -2,6 +2,7 @@
 
 import json
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -17,6 +18,8 @@ from pim_sort_merge_join_tpu.engine.checkpoint import (
 )
 from pim_sort_merge_join_tpu.engine.pipeline import QueryPipeline
 from pim_sort_merge_join_tpu.ops import oracle
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
 def test_checkpoint_roundtrip(tmp_path, small_tables):
@@ -232,14 +235,13 @@ def test_debug_log_distributed_stages():
 
 
 def test_cli_run_and_generate(tmp_path):
-    env = dict(os.environ)
-    env["JAX_PLATFORMS"] = "cpu"
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     d1, d2 = str(tmp_path / "a.csv"), str(tmp_path / "b.csv")
     out = str(tmp_path / "r.csv")
     gen = subprocess.run(
         [sys.executable, "-m", "pim_sort_merge_join_tpu.runner.cli",
          "generate", "500", "--out1", d1, "--out2", d2],
-        capture_output=True, text=True, env=env, cwd="/root/repo",
+        capture_output=True, text=True, env=env, cwd=REPO,
     )
     assert gen.returncode == 0, gen.stderr
     run = subprocess.run(
@@ -247,7 +249,7 @@ def test_cli_run_and_generate(tmp_path):
          "run", d1, d2, "-o", out, "--select-val1", "100",
          "--select-val2", "100", "--simulator", "4", "--distributed",
          "--narrow-keys", "--metrics"],
-        capture_output=True, text=True, env=env, cwd="/root/repo",
+        capture_output=True, text=True, env=env, cwd=REPO,
     )
     assert run.returncode == 0, run.stderr
     rows1 = csv_io.load_csv_numpy(d1)
@@ -271,21 +273,20 @@ def test_malformed_csv_message(tmp_path):
 def test_cli_profile_captures_trace(tmp_path):
     """--profile wires engine/profiling.device_trace into the run path and
     leaves a TensorBoard/Perfetto-readable trace on disk (S10 analog)."""
-    env = dict(os.environ)
-    env["JAX_PLATFORMS"] = "cpu"
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     d1, d2 = str(tmp_path / "a.csv"), str(tmp_path / "b.csv")
     trace_dir = str(tmp_path / "trace")
     subprocess.run(
         [sys.executable, "-m", "pim_sort_merge_join_tpu.runner.cli",
          "generate", "200", "--out1", d1, "--out2", d2],
-        capture_output=True, text=True, env=env, cwd="/root/repo", check=True,
+        capture_output=True, text=True, env=env, cwd=REPO, check=True,
     )
     run = subprocess.run(
         [sys.executable, "-m", "pim_sort_merge_join_tpu.runner.cli",
          "run", d1, d2, "-o", str(tmp_path / "r.csv"),
          "--select-val1", "50", "--select-val2", "50",
          "--simulator", "2", "--profile", trace_dir],
-        capture_output=True, text=True, env=env, cwd="/root/repo",
+        capture_output=True, text=True, env=env, cwd=REPO,
     )
     assert run.returncode == 0, run.stderr
     assert "device trace captured" in run.stderr

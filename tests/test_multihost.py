@@ -5,8 +5,8 @@ The reference's only multi-device story is N simulated DPUs in ONE process
 module goes further: N real OS processes joined by `jax.distributed`
 (Gloo-backed CPU collectives), exercising process boundaries, cross-process
 all_to_all/all_gather, sharded per-process ingest, and the
-process-0-writes-the-result contract -- the exact mechanics of a TPU pod
-slice, minus the ICI.
+process-0-writes-the-result contract -- the mechanics of a multi-host GPU
+run, minus the interconnect.
 """
 
 from __future__ import annotations

@@ -232,15 +232,9 @@ def test_narrow_data_negative_payloads(rng, tmp_path):
     np.testing.assert_array_equal(nd, wide)
 
 
-def test_narrow_data_cast_path_below_regime_gate(rng, tmp_path, monkeypatch):
-    # Round 5: the int64->int32 payload cast only engages at
-    # NARROW_DATA_PALLAS_MIN (the Pallas emit-sort regime, where halved
-    # planes pay; below it the cast measured neutral-to-negative on XLA).
-    # Lower the gate to 0 so the casting path itself stays exercised at
-    # test sizes, and pin that outputs still match the wide path.
-    from pim_sort_merge_join_tpu.ops import join as join_ops
-
-    monkeypatch.setattr(join_ops, "NARROW_DATA_PALLAS_MIN", 0)
+def test_narrow_data_cast_path_below_regime_gate(rng, tmp_path):
+    # The int64->int32 payload cast engages at every size (no size gate):
+    # full-range int32 payloads must come back identical to the wide path.
     n = 300
     keys1 = rng.integers(0, 200, size=n)
     keys2 = rng.integers(0, 200, size=n)

@@ -26,7 +26,10 @@ def test_chained_slope_scales_with_work():
         def body(carry, arr):
             y = arr.at[0].add(opaque_zero(carry))
             for _ in range(w):
-                y = jax.lax.sort(y)
+                # Multiplying by an odd constant permutes int32 values and
+                # scrambles their order, so every sort gets unsorted input
+                # (a sort of sorted data is cheaper: the work would not be 8x).
+                y = jax.lax.sort(y * jnp.int32(-1640531535))
                 # Re-perturb so the next sort cannot be folded away.
                 y = y.at[0].add(opaque_zero(carry) + jnp.int32(1))
             return carry + y[0]

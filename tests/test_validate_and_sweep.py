@@ -1,6 +1,8 @@
 """Validation utils, determinism harness, and sweep smoke test."""
 
 import json
+import os
+import pathlib
 import subprocess
 import sys
 
@@ -10,6 +12,8 @@ import pytest
 from pim_sort_merge_join_tpu.columnar.table import Table
 from pim_sort_merge_join_tpu.config import EngineConfig, Predicate
 from pim_sort_merge_join_tpu.utils import validate
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
 def test_check_table_ok(small_tables):
@@ -61,14 +65,14 @@ def test_sweep_smoke():
         [sys.executable, "-m", "bench.sweep", "--sizes", "2000", "--reps", "2"],
         capture_output=True,
         text=True,
-        cwd="/root/repo",
-        env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
-             "HOME": "/root", "PYTHONPATH": "/root/repo"},
+        cwd=REPO,
+        env=dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO)),
     )
     assert res.returncode == 0, res.stderr
     lines = [json.loads(l) for l in res.stdout.strip().splitlines()]
     engines = {l["engine"] for l in lines}
-    assert engines == {"cpu_oracle", "tpu"}
+    assert engines == {"cpu_oracle", "device"}
+    assert {l["platform"] for l in lines if l["engine"] == "device"} == {"cpu"}
 
 
 def test_multihost_single_process(tmp_path, small_tables):
